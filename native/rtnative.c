@@ -1,6 +1,6 @@
-/* rtnative — native runtime accelerators for raytracer_tpu.
+/* rtnative — native runtime accelerators for raytracer.
  *
- * The reference's runtime is C++/CUDA end to end; the TPU framework keeps the
+ * The reference's runtime is C++/CUDA end to end; this framework keeps the
  * compute path in XLA/Pallas and provides this native library for the
  * host-side runtime work the reference also did natively:
  *
@@ -13,7 +13,7 @@
  *   - 64-bit Morton encoding for host-side BVH experiments (z_order.cu).
  *
  * Built as a plain C shared library (build.sh) and bound via ctypes
- * (raytracer_tpu/native.py): no pybind11 dependency.
+ * (raytracer/native.py): no pybind11 dependency.
  */
 
 #include <math.h>

@@ -25,7 +25,7 @@ os.environ["XLA_FLAGS"] = (
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytracer_tpu import dist  # noqa: E402
+from raytracer import dist  # noqa: E402
 
 dist.initialize_distributed(f"127.0.0.1:{port}", nproc, pid)
 
@@ -36,13 +36,13 @@ assert jax.process_count() == nproc, jax.process_count()
 assert len(jax.local_devices()) == 2
 assert len(jax.devices()) == 2 * nproc
 
-from raytracer_tpu import generate  # noqa: E402
-from raytracer_tpu.render.engine import render_rays, make_cast  # noqa: E402
-from raytracer_tpu.render.geometry import (camera_rays,  # noqa: E402
+from raytracer import generate  # noqa: E402
+from raytracer.render.engine import render_rays, make_cast  # noqa: E402
+from raytracer.render.geometry import (camera_rays,  # noqa: E402
                                            expand_geometry)
-from raytracer_tpu.scene import device_scene  # noqa: E402
+from raytracer.scene import device_scene  # noqa: E402
 
-w = generate("/root/reference/world1.json")
+w = generate("cubes1")
 scene = device_scene(w.scene)
 camera = jax.tree_util.tree_map(jnp.asarray, w.camera)
 cfg = w.config.replace(width=32, height=32, use_bvh=False)
@@ -83,7 +83,7 @@ csum = float(collective())
 # RATIO isolates what the 2-process coordination itself costs.
 import time  # noqa: E402
 
-from raytracer_tpu import diff  # noqa: E402
+from raytracer import diff  # noqa: E402
 
 
 def time_loop(fn, iters=5):

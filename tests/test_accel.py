@@ -5,14 +5,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracer_tpu import generate, raymath as rm
-from raytracer_tpu.accel import build_lbvh, leaf_instances, traverse_mask_reference
-from raytracer_tpu.render.geometry import camera_rays, expand_geometry
-from raytracer_tpu.scene import device_scene
+from raytracer import generate, raymath as rm
+from raytracer.accel import build_lbvh, leaf_instances, traverse_mask_reference
+from raytracer.render.geometry import camera_rays, expand_geometry
+from raytracer.scene import device_scene
 
 
 def test_lbvh_layout_and_root():
-    w = generate("/root/reference/world8.json")
+    w = generate("cubes8")
     scene = device_scene(w.scene)
     geom = expand_geometry(scene)
     bvh = build_lbvh(geom.aabb_min, geom.aabb_max)
@@ -33,7 +33,7 @@ def test_lbvh_layout_and_root():
 def test_lbvh_traversal_reaches_all_hit_instances():
     """Every instance whose AABB a ray hits must be reachable through the tree
     (ancestor boxes contain descendants, so the chain of box hits holds)."""
-    w = generate("/root/reference/world8.json")
+    w = generate("cubes8")
     scene = device_scene(w.scene)
     geom = expand_geometry(scene)
     bvh = build_lbvh(geom.aabb_min, geom.aabb_max)
@@ -58,19 +58,19 @@ def test_lbvh_traversal_reaches_all_hit_instances():
 
 
 def test_bvh_walk_scales_logarithmically():
-    """The in-kernel LBVH walk (pallas_traversal="bvh") must visit O(log N)
+    """The in-kernel LBVH walk (the Triton kernel) must visit O(log N)
     nodes per occluder: growing a cube grid 64x (256 -> 16384 instances) may
-    only grow per-tile node visits by a small constant factor, and hits must
+    only grow per-block node visits by a small constant factor, and hits must
     still match the brute oracle (production accel requirement; reference
     analog: warp-synchronous stackless iterator, src/rayopt/bvh.cu:99-122)."""
     import jax
     import jax.numpy as jnp
 
-    from raytracer_tpu.builder import Material, SceneBuilder, TextureCoords
-    from raytracer_tpu.render import pallas_engine as pe
-    from raytracer_tpu.render.cast import make_brute_cast
-    from raytracer_tpu.render.geometry import expand_geometry
-    from raytracer_tpu.scene import RenderConfig, device_scene
+    from raytracer.builder import Material, SceneBuilder, TextureCoords
+    from raytracer.render import pallas_engine as pe
+    from raytracer.render.cast import make_brute_cast
+    from raytracer.render.geometry import expand_geometry
+    from raytracer.scene import RenderConfig, device_scene
 
     def grid_world(side):
         sb = SceneBuilder()
@@ -84,9 +84,9 @@ def test_bvh_walk_scales_logarithmically():
                     [1.0 * gx, 0.0, 1.0 * gz])  # touching: fills the plane
         return device_scene(sb.finish())
 
-    cfg = RenderConfig(pallas_traversal="bvh", max_tris_per_mesh=12)
+    cfg = RenderConfig(max_tris_per_mesh=12, interpret=True)
 
-    # one coherent ray tile looking down at the middle of the grid
+    # one coherent 32x32 patch of rays looking down at the middle of the grid
     def rays_for(side):
         n = 1024
         span = 6.0

@@ -19,10 +19,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from raytracer_tpu import generate
-from raytracer_tpu.pngio import read_png
-from raytracer_tpu.render import render_frame
-from raytracer_tpu.scene import device_scene
+from raytracer import generate
+from raytracer.pngio import read_png
+from raytracer.render import render_frame
+from raytracer.scene import device_scene
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden", "images")
 

@@ -18,7 +18,7 @@ def test_live_viewer_selftest():
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run(
         [sys.executable, os.path.join(root, "tools", "live_viewer.py"),
-         "-c", "/root/reference/world1.json", "--width", "96",
+         "-c", "cubes1", "--width", "96",
          "--height", "64", "--port", str(port), "--selftest"],
         capture_output=True, text=True, timeout=420, cwd=root, env=env,
     )

@@ -18,9 +18,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from raytracer_tpu.render.engine import render_frame
-from raytracer_tpu.scene import device_scene
-from raytracer_tpu.synth import make_mixed_world
+from raytracer.render.engine import render_frame
+from raytracer.scene import device_scene
+from raytracer.synth import make_mixed_world
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +49,7 @@ def test_bounces_contribute(mixed):
 def test_mixed_render_matches_independent_recursion(mixed, capsys):
     """Wavefront (compacted queue) == explicit recursion, pixel by pixel, at
     depth 3 — including pixels whose primary hit spawns BOTH children."""
-    from raytracer_tpu.debug import debug_cast
+    from raytracer.debug import debug_cast
 
     scene, cam, cfg = mixed
     img = np.asarray(render_frame(scene, cam, cfg))
@@ -77,7 +77,7 @@ def test_mixed_engines_match(mixed):
     img_jnp = np.asarray(render_frame(scene, cam, cfg.replace(engine="jnp")))
     img_pal = np.asarray(
         render_frame(scene, cam, cfg.replace(engine="pallas",
-                                             pallas_kernel="scalar"))
+                                             interpret=True))
     )
     d = np.abs(img_pal - img_jnp).max(axis=-1)
     frac_off = (d > 1e-3).mean()
@@ -88,8 +88,8 @@ def test_mixed_engines_match(mixed):
 def test_mixed_drop_accounting(mixed):
     """Children beyond queue capacity are dropped AND counted; ample capacity
     drops nothing and capacity variations leave the image unchanged."""
-    from raytracer_tpu.render.engine import make_cast, radiance
-    from raytracer_tpu.render.geometry import camera_rays, expand_geometry
+    from raytracer.render.engine import make_cast, radiance
+    from raytracer.render.geometry import camera_rays, expand_geometry
 
     scene, cam, cfg = mixed
     geom = expand_geometry(scene)
@@ -137,9 +137,9 @@ def test_child_tile_cap_matches_dense_and_accounts_drops(mixed):
     count every dropped child when starved."""
     import numpy as np
 
-    from raytracer_tpu.render.engine import (_to_blocks, make_cast, radiance,
+    from raytracer.render.engine import (_to_blocks, make_cast, radiance,
                                              render_frame)
-    from raytracer_tpu.render.geometry import camera_rays, expand_geometry
+    from raytracer.render.geometry import camera_rays, expand_geometry
 
     scene, camera, cfg = mixed
     a = np.asarray(render_frame(scene, camera, cfg))

@@ -1,6 +1,6 @@
 import numpy as np
 
-from raytracer_tpu.mt19937 import MT19937
+from raytracer.mt19937 import MT19937
 
 
 def test_known_first_output_default_seed():

@@ -7,7 +7,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from raytracer_tpu import native
+from raytracer import native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,8 +26,8 @@ def built_lib():
 
 
 def test_png_unfilter_matches_python():
-    from raytracer_tpu.pngio import read_png
-    import raytracer_tpu.native as nat
+    from raytracer.pngio import read_png
+    import raytracer.native as nat
 
     img = read_png("/root/reference/assets/sus.png")
     orig = nat.png_unfilter
@@ -40,7 +40,7 @@ def test_png_unfilter_matches_python():
 
 
 def test_perlin_grid_matches_python():
-    from raytracer_tpu.perlin import Perlin
+    from raytracer.perlin import Perlin
 
     f32 = np.float32
     p = Perlin(42, 2)
@@ -55,7 +55,7 @@ def test_perlin_grid_matches_python():
 
 
 def test_z_order_matches_numpy():
-    from raytracer_tpu import raymath as rm
+    from raytracer import raymath as rm
 
     pts = np.random.RandomState(3).randn(256, 3).astype(np.float32)
     zn = native.z_order_batch(pts)

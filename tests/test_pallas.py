@@ -1,8 +1,15 @@
-"""Pallas cast kernel vs the jnp oracle (interpret mode on CPU).
+"""Pallas-Triton walk kernels vs the jnp oracle.
 
-The kernel's semantics must be bit-equal to the brute-force oracle: same hits,
-same times, same triangle ids, same barycentrics — for coherent primary tiles
-and for incoherent (shadow/bounce-like) ray batches."""
+On the CPU the kernels run in the Pallas interpreter (``interpret=True``,
+always asked for explicitly), and their lowering to Triton for the GPU is
+checked without a card (``lowering_platforms=("cuda",)``).  Tests marked
+``gpu`` run the compiled kernels and skip when no CUDA device is present.
+
+The kernel's semantics must match the brute-force oracle: same hits, same
+times, same faces and instances, same shading attributes — for coherent
+primary blocks and for incoherent (shadow/bounce-like) ray batches."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -10,16 +17,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from raytracer_tpu import generate
-from raytracer_tpu.render.cast import make_brute_cast
-from raytracer_tpu.render.geometry import camera_rays, expand_geometry
-from raytracer_tpu.render import pallas_engine as pe
-from raytracer_tpu.scene import device_scene
+from raytracer import generate
+from raytracer.render.cast import make_brute_cast
+from raytracer.render.geometry import camera_rays, expand_geometry
+from raytracer.render import pallas_engine as pe
+from raytracer.scene import RenderConfig, device_scene
 
 
 @pytest.fixture(scope="module")
 def world8():
-    w = generate("/root/reference/world8.json")
+    w = generate("cubes8")
+    w.config = w.config.replace(interpret=True)
     scene = device_scene(w.scene)
     cam = jax.tree_util.tree_map(jnp.asarray, w.camera)
     geom = expand_geometry(scene)
@@ -30,9 +38,8 @@ def _compare(hit_p, hit_b, scene, geom):
     """Box-fast-path contract: identical hit mask, times, and everything
     shading consumes (faceted normal, material, instance) — the reported
     triangle id is a representative of the hit FACE (either of the face's two
-    coplanar triangles shades identically; documented deviation in
-    pallas_engine._box_face_hit)."""
-    from raytracer_tpu.render.cast import hit_shading_attrs
+    coplanar triangles shades identically; pallas_engine._box_face_hit)."""
+    from raytracer.render.cast import hit_shading_attrs
 
     vp = np.asarray(hit_p.valid)
     vb = np.asarray(hit_b.valid)
@@ -59,6 +66,14 @@ def _compare(hit_p, hit_b, scene, geom):
     assert (np.asarray(m_p)[both] == np.asarray(m_b)[both]).all()
 
 
+def _incoherent(seed, n, lo=-5.0, hi=5.0):
+    rng = np.random.RandomState(seed)
+    o = jnp.asarray(rng.uniform(lo, hi, (n, 3)).astype(np.float32))
+    d = rng.randn(n, 3).astype(np.float32)
+    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    return o, d, rng
+
+
 def test_pallas_cast_matches_oracle_coherent(world8):
     w, scene, cam, geom = world8
     ro, rd = camera_rays(cam, 128, 96)
@@ -72,92 +87,17 @@ def test_pallas_cast_matches_oracle_coherent(world8):
 
 def test_pallas_cast_matches_oracle_incoherent(world8):
     w, scene, cam, geom = world8
-    rng = np.random.RandomState(0)
-    o = jnp.asarray(rng.uniform(-5, 5, (1024, 3)).astype(np.float32))
-    d = rng.randn(1024, 3).astype(np.float32)
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    o, d, _ = _incoherent(0, 1024)
     hit_p = pe.make_pallas_cast(scene, geom, w.config)(o, d)
     hit_b = make_brute_cast(geom)(o, d)
     assert int(np.asarray(hit_b.valid).sum()) > 0
     _compare(hit_p, hit_b, scene, geom)
 
 
-def test_mxu_cast_matches_oracle_coherent(world8):
-    from raytracer_tpu.render.pallas_mxu import make_mxu_cast
-
-    w, scene, cam, geom = world8
-    ro, rd = camera_rays(cam, 128, 96)
-    ro = ro.reshape(-1, 3)
-    rd = rd.reshape(-1, 3)
-    hit_m = make_mxu_cast(scene, geom, w.config)(ro, rd)
-    hit_b = make_brute_cast(geom)(ro, rd)
-    vm = np.asarray(hit_m.valid)
-    vb = np.asarray(hit_b.valid)
-    # Different accept formulation (pluecker sign vs area-sum): allow a tiny
-    # edge-pixel disagreement budget.
-    assert (vm != vb).mean() < 0.001
-    both = vm & vb
-    np.testing.assert_allclose(
-        np.asarray(hit_m.t)[both], np.asarray(hit_b.t)[both], rtol=1e-4, atol=1e-4
-    )
-    assert (np.asarray(hit_m.wtri)[both] == np.asarray(hit_b.wtri)[both]).mean() > 0.999
-
-
-def test_mxu_cast_matches_oracle_incoherent(world8):
-    from raytracer_tpu.render.pallas_mxu import make_mxu_cast
-
-    w, scene, cam, geom = world8
-    rng = np.random.RandomState(1)
-    o = jnp.asarray(rng.uniform(-5, 5, (1024, 3)).astype(np.float32))
-    d = rng.randn(1024, 3).astype(np.float32)
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
-    hit_m = make_mxu_cast(scene, geom, w.config)(o, d)
-    hit_b = make_brute_cast(geom)(o, d)
-    vm = np.asarray(hit_m.valid)
-    vb = np.asarray(hit_b.valid)
-    assert (vm != vb).mean() < 0.005
-    both = vm & vb
-    np.testing.assert_allclose(
-        np.asarray(hit_m.t)[both], np.asarray(hit_b.t)[both], rtol=1e-4, atol=1e-4
-    )
-
-
-def test_tile_candidates_conservative(world8):
-    """Every instance any ray of a tile overlaps must appear in the tile's
-    candidate list (or the tile must be flagged overflow)."""
-    from raytracer_tpu import raymath as rm
-
-    w, scene, cam, geom = world8
-    ro, rd = camera_rays(cam, 64, 64)
-    ro = ro.reshape(-1, 3)
-    rd = rd.reshape(-1, 3)
-    tables = pe.build_tables(scene, geom)
-    comps = [ro[:, 0].reshape(-1, 128), ro[:, 1].reshape(-1, 128),
-             ro[:, 2].reshape(-1, 128), rd[:, 0].reshape(-1, 128),
-             rd[:, 1].reshape(-1, 128), rd[:, 2].reshape(-1, 128)]
-    tile_rows = 8
-    cand, info = pe.tile_candidates(comps, tile_rows, tables.inst_f32, 64)
-    cand = np.asarray(cand)
-    info = np.asarray(info)
-
-    hit, _ = rm.ray_aabb(
-        ro[:, None, :], rd[:, None, :], geom.aabb_min[None], geom.aabb_max[None]
-    )
-    hit = np.asarray(hit)  # [R, N]
-    tile = tile_rows * 128
-    n_tiles = hit.shape[0] // tile
-    for ti in range(n_tiles):
-        per_tile = hit[ti * tile : (ti + 1) * tile].any(0)
-        needed = set(np.nonzero(per_tile)[0])
-        if info[ti, 1]:
-            continue  # overflow: kernel loops everything
-        listed = set(cand[ti, : info[ti, 0]])
-        assert needed <= listed, f"tile {ti} missing {needed - listed}"
-
-
 def test_occlude_matches_closest_hit(world8):
-    """The any-hit occlusion kernel must agree with ``valid & t <= max_t`` of
-    the closest-hit cast for every max_t (the closest hit is minimal)."""
+    """The walk's any-hit occlusion must agree with ``valid & t <= max_t`` of
+    its closest-hit cast for every max_t (the closest hit is minimal), and
+    the fused two-query walk must equal two single queries."""
     w, scene, cam, geom = world8
     cast = pe.make_pallas_cast(scene, geom, w.config)
 
@@ -171,29 +111,28 @@ def test_occlude_matches_closest_hit(world8):
         got = np.asarray(cast.occlude(ro, rd, jnp.float32(max_t)))
         assert (want == got).all(), f"max_t={max_t}"
 
-    rng = np.random.RandomState(7)
-    o = jnp.asarray(rng.uniform(-5, 5, (512, 3)).astype(np.float32))
-    d = rng.randn(512, 3).astype(np.float32)
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    o, d, rng = _incoherent(7, 512)
     mt = jnp.asarray(rng.uniform(0.1, 10.0, (512,)).astype(np.float32))
     hit = cast(o, d)
     t_fin = jnp.where(hit.valid, hit.t, jnp.inf)
     want = np.asarray(hit.valid & (t_fin <= mt))
     got = np.asarray(cast.occlude(o, d, mt))
     assert (want == got).all()
+    b1, b2 = cast.occlude2(o, d, mt, ro[:512], rd[:512], jnp.inf)
+    assert (np.asarray(b1) == want).all()
+    assert (np.asarray(b2) == np.asarray(cast.occlude(ro[:512], rd[:512],
+                                                      jnp.inf))).all()
 
 
 def test_bvh_occlude_matches_closest_hit():
-    """The BVH-walk occlusion kernel (shadows at scale, O(log N) per
-    occluder) must agree with ``valid & t <= max_t`` of the closest-hit cast
-    — on a synthetic world large enough that the walk path is the production
-    choice, with random incoherent shadow-style rays."""
-    from raytracer_tpu.scene import device_scene
-    from raytracer_tpu.synth import make_big_world
+    """The walk's occlusion must agree with ``valid & t <= max_t`` of the
+    closest-hit cast on a synthetic world large enough for a deep tree
+    (300 instances), with random incoherent shadow-style rays."""
+    from raytracer.synth import make_big_world
 
     scene, cam, cfg = make_big_world(300)
     scene = device_scene(scene)
-    cfg = cfg.replace(pallas_traversal="bvh")
+    cfg = cfg.replace(interpret=True)
     geom = expand_geometry(scene)
     cast = pe.make_pallas_cast(scene, geom, cfg)
 
@@ -208,10 +147,7 @@ def test_bvh_occlude_matches_closest_hit():
         got = np.asarray(cast.occlude(ro, rd, jnp.float32(max_t)))
         assert (want == got).all(), f"max_t={max_t}"
 
-    rng = np.random.RandomState(11)
-    o = jnp.asarray(rng.uniform(-12, 12, (1024, 3)).astype(np.float32))
-    d = rng.randn(1024, 3).astype(np.float32)
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    o, d, rng = _incoherent(11, 1024, -12.0, 12.0)
     mt = jnp.asarray(rng.uniform(0.5, 30.0, (1024,)).astype(np.float32))
     hit = cast(o, d)
     t_fin = jnp.where(hit.valid, hit.t, jnp.inf)
@@ -221,24 +157,24 @@ def test_bvh_occlude_matches_closest_hit():
 
 
 def test_bvh_render_matches_cull_big_world():
-    """End-to-end render of the at-scale synthetic world: the BVH traversal
-    (cast + the new occlusion walk, exercised via the shadow fast path) must
-    reproduce the candidate-cull image."""
-    from raytracer_tpu.render.engine import render_frame
-    from raytracer_tpu.scene import device_scene
-    from raytracer_tpu.synth import make_big_world
+    """End-to-end render of the at-scale synthetic world: the Triton walk
+    (cast + occlusion walk, exercised via the shadow fast path) must
+    reproduce the XLA culled-cast engine's image."""
+    from raytracer.render.engine import render_frame
+    from raytracer.synth import make_big_world
 
     scene, cam, cfg = make_big_world(300)
     scene = device_scene(scene)
     cam = jax.tree_util.tree_map(jnp.asarray, cam)
-    cfg = cfg.replace(width=96, height=72, engine="pallas",
-                      pallas_kernel="scalar")
+    cfg = cfg.replace(width=96, height=72)
     assert not cfg.any_refractive  # shadow march uses the occlude fast path
     img_cull = np.asarray(render_frame(scene, cam,
-                                       cfg.replace(pallas_traversal="cull")))
-    img_bvh = np.asarray(render_frame(scene, cam,
-                                      cfg.replace(pallas_traversal="bvh")))
-    np.testing.assert_allclose(img_bvh, img_cull, rtol=1e-5, atol=1e-5)
+                                       cfg.replace(engine="jnp",
+                                                   use_bvh=True)))
+    img_walk = np.asarray(render_frame(scene, cam,
+                                       cfg.replace(engine="pallas",
+                                                   interpret=True)))
+    np.testing.assert_allclose(img_walk, img_cull, rtol=1e-5, atol=1e-5)
 
 
 def test_box_detection_world8(world8):
@@ -260,16 +196,14 @@ def test_box_detection_world8(world8):
 def test_fused_dual_light_occlusion_matches():
     """cfg.fused_shadows merges a two-light round's shadow queries into one
     dual-query LBVH walk; frames must be bit-identical to the per-light
-    occlusion path (world8: 1 point + 1 dir light, opaque)."""
-    from raytracer_tpu import generate
-    from raytracer_tpu.render import render_frame
-    from raytracer_tpu.scene import device_scene
+    occlusion path (cubes8: 1 point + 1 dir light, opaque)."""
+    from raytracer.render import render_frame
 
-    w = generate("/root/reference/world8.json")
+    w = generate("cubes8")
     scene = device_scene(w.scene)
     cam = jax.tree_util.tree_map(jnp.asarray, w.camera)
     cfg = w.config.replace(width=160, height=96, engine="pallas",
-                           pallas_kernel="scalar", pallas_traversal="bvh")
+                           interpret=True)
     base = np.asarray(render_frame(
         scene, cam, cfg.replace(fused_shadows=False)))
     fused = np.asarray(render_frame(
@@ -283,15 +217,14 @@ def test_fused_dual_light_occlusion_gradients_match():
     identical (to f32 tolerance) whether the two shadow queries run fused
     (pallas_occlude2_detached, with its scalar jnp.inf max_t cotangent) or
     per-light.  Guards the occlude2 custom_vjp zero-cotangent rule, which a
-    forward bit-identity test cannot see (ADVICE r4)."""
-    from raytracer_tpu import diff
-    from raytracer_tpu.scene import device_scene
+    forward bit-identity test cannot see."""
+    from raytracer import diff
 
-    w = generate("/root/reference/world8.json")
+    w = generate("cubes8")
     scene = device_scene(w.scene)
     cam = jax.tree_util.tree_map(jnp.asarray, w.camera)
     cfg = w.config.replace(width=96, height=64, engine="pallas",
-                           pallas_kernel="scalar", pallas_traversal="bvh")
+                           interpret=True)
     params = diff.trainable_params(scene, cam)
     target = jnp.zeros((cfg.height, cfg.width, 4), jnp.float32)
 
@@ -307,16 +240,149 @@ def test_fused_dual_light_occlusion_gradients_match():
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_auto_tile_rows_by_frame_size():
-    """cfg.tile_rows == 0 auto-selects the kernel tile: 48 rows up to ~1M
-    rays (8192 padded kernel rows), 64 above — the round-5 sweep optima.
-    Pins the 32-alignment padding in the ray-count estimate and the two
-    headline frame sizes."""
-    assert pe.auto_tile_rows(640, 480) == 48      # 2400 kernel rows
-    assert pe.auto_tile_rows(1024, 1024) == 48    # exactly 8192 rows
-    assert pe.auto_tile_rows(1920, 1080) == 64    # ~16k rows
-    # padding matters: 1025x1024 pads to 1056x1024 -> 8448 rows -> 64
-    assert pe.auto_tile_rows(1025, 1024) == 64
-    # both autoselected values satisfy the Mosaic sublane constraint
-    assert pe.auto_tile_rows(64, 64) % 8 == 0
-    assert pe.auto_tile_rows(4096, 4096) % 8 == 0
+@pytest.mark.parametrize("d,block", [
+    (1, 32), (4, 32), (5, 32), (6, 64), (8, 64), (9, 128), (16, 256),
+    (32, 1024), (64, 1024),
+])
+def test_ray_block_for_dim(d, block):
+    """The CLI's -d (the reference's d x d CUDA block, src/main.cc:38) maps
+    to a Triton block of d*d rays rounded up to a power of two, kept within
+    one warp (32) and 1024 rays."""
+    assert pe.ray_block_for_dim(d) == block
+
+
+def test_dim_flag_sets_ray_block(monkeypatch):
+    """cli -d reaches RenderConfig.ray_block."""
+    from raytracer import cli
+    import raytracer.render as render
+
+    seen = {}
+
+    def fake_render(scene, camera, cfg):
+        seen["cfg"] = cfg
+        return jnp.zeros((cfg.height, cfg.width, 4), jnp.float32)
+
+    monkeypatch.setattr(render, "render_frame", fake_render)
+    assert cli.main(["-c", "cubes1", "-d", "8", "-b", "--width", "32",
+                     "--height", "32"]) == 0
+    assert seen["cfg"].ray_block == 64
+
+
+def test_num_warps_for_block():
+    assert [pe.num_warps_for_block(b) for b in (16, 32, 64, 128, 1024)] == \
+        [1, 1, 2, 4, 4]
+
+
+def test_ray_block_must_be_power_of_two(world8):
+    w, scene, cam, geom = world8
+    with pytest.raises(ValueError, match="power of two"):
+        pe.make_pallas_cast(scene, geom, w.config.replace(ray_block=48))
+
+
+def test_block_rays_pads_with_parked_rays():
+    """Rays pad to a whole number of blocks; pad rays park at 1e30 with a
+    unit direction so their blocks fail every vote."""
+    ro = jnp.ones((5, 7, 3))
+    rd = jnp.full((5, 7, 3), 0.5)
+    comps, r, rp = pe._block_rays(ro, rd, 32)
+    assert (r, rp) == (35, 64)
+    assert all(c.shape == (64,) for c in comps)
+    assert float(comps[0][34]) == 1.0
+    assert comps[0][35] == np.float32(1.0e30)
+    assert [float(c[40]) for c in comps[3:]] == [0.0, 0.0, 1.0]
+
+
+def test_walk_cast_output_shapes(world8):
+    """Any leading batch shape (here not a multiple of the block) comes back
+    unchanged, with normal and material filled in."""
+    w, scene, cam, geom = world8
+    ro, rd = camera_rays(cam, 10, 7)
+    hit = pe.make_pallas_cast(scene, geom, w.config.replace(ray_block=32))(
+        ro, rd)
+    assert hit.t.shape == (7, 10) and hit.uv.shape == (7, 10, 2)
+    assert hit.normal.shape == (7, 10, 3) and hit.mat.shape == (7, 10)
+    brute = make_brute_cast(geom)(ro, rd)
+    assert (np.asarray(hit.valid) == np.asarray(brute.valid)).all()
+
+
+def _pallas_calls(jaxpr):
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "pallas_call":
+            out.append(eqn)
+            continue
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (tuple, list)) else (v,):
+                sub = getattr(sub, "jaxpr", sub)
+                if hasattr(sub, "eqns"):
+                    out += _pallas_calls(sub)
+    return out
+
+
+def test_gpu_engine_never_interprets_by_itself(world8):
+    """The default RenderConfig runs the kernels compiled: nothing switches
+    the interpreter on behind the caller's back (no backend probe, no
+    environment variable) — only ``interpret=True`` does."""
+    from raytracer.render.engine import default_engine
+
+    w, scene, cam, geom = world8
+    assert RenderConfig().interpret is False
+    assert default_engine() == "jnp"  # the Triton walk only on a GPU
+    ro, rd = camera_rays(cam, 8, 8)
+    for interp in (False, True):
+        cfg = w.config.replace(interpret=interp)
+        jx = jax.make_jaxpr(
+            lambda a, b: pe.make_pallas_cast(scene, geom, cfg)(a, b).t)(ro, rd)
+        calls = _pallas_calls(jx.jaxpr)
+        assert calls and all(bool(e.params["interpret"]) == interp
+                             for e in calls)
+
+
+_KERNELS = {
+    "cast": lambda c: c,
+    "cast_exact_uv": lambda c: c,
+    "occlude": lambda c: functools.partial(c.occlude, max_t=3.0),
+    "occlude2": lambda c: lambda ro, rd: c.occlude2(ro, rd, 3.0, ro, rd,
+                                                     jnp.inf),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_KERNELS))
+def test_kernel_lowers_for_cuda(world8, kernel):
+    """Each kernel lowers through Pallas->Triton for a CUDA target on this
+    CPU-only host (what the GPU compiler would reject at the Triton level —
+    unsupported primitives, non-power-of-two blocks — fails here)."""
+    w, scene, cam, geom = world8
+    cfg = w.config.replace(interpret=False,
+                           edge_aware_grads=kernel == "cast_exact_uv")
+    ro, rd = camera_rays(cam, 64, 48)
+
+    def f(a, b):
+        out = _KERNELS[kernel](pe.make_pallas_cast(scene, geom, cfg))(a, b)
+        return jax.tree_util.tree_leaves(out)
+
+    lowered = jax.jit(f).trace(ro, rd).lower(lowering_platforms=("cuda",))
+    assert "triton" in lowered.as_text().lower()
+
+
+@pytest.mark.gpu
+def test_compiled_kernels_match_oracle_on_gpu(world8):
+    """The compiled Triton kernels (no interpreter) against the oracle, on a
+    CUDA device: the same contract as the interpret-mode tests above."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a CUDA GPU")
+    w, scene, cam, geom = world8
+    cfg = w.config.replace(interpret=False)
+    ro, rd = camera_rays(cam, 128, 96)
+    ro = ro.reshape(-1, 3)
+    rd = rd.reshape(-1, 3)
+    cast = pe.make_pallas_cast(scene, geom, cfg)
+    with jax.default_matmul_precision("highest"):
+        hit_b = make_brute_cast(geom)(ro, rd)
+    hit_p = cast(ro, rd)
+    _compare(hit_p, hit_b, scene, geom)
+    t_fin = jnp.where(hit_b.valid, hit_b.t, jnp.inf)
+    want = np.asarray(hit_b.valid & (t_fin <= 2.0))
+    assert (np.asarray(cast.occlude(ro, rd, 2.0)) == want).all()
+    b1, _ = cast.occlude2(ro, rd, 2.0, ro, rd, jnp.inf)
+    assert (np.asarray(b1) == want).all()

@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from raytracer_tpu.perlin import Perlin
+from raytracer.perlin import Perlin
 
 f32 = np.float32
 

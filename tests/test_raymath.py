@@ -3,7 +3,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from raytracer_tpu import raymath as rm
+from raytracer import raymath as rm
 
 
 def test_normalize_zero_below_threshold():

@@ -17,10 +17,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from raytracer_tpu.builder import (Material, SceneBuilder, TextureCoords,
+from raytracer.builder import (Material, SceneBuilder, TextureCoords,
                                    make_camera)
-from raytracer_tpu.render.engine import render_frame
-from raytracer_tpu.scene import device_scene
+from raytracer.render.engine import render_frame
+from raytracer.scene import device_scene
 
 
 def _checker_atlas(n=8):
@@ -33,9 +33,9 @@ def _checker_atlas(n=8):
 
 
 def test_sample_atlas_picks_expected_texel():
-    from raytracer_tpu.render.cast import Hit
-    from raytracer_tpu.render.geometry import expand_geometry
-    from raytracer_tpu.render.shading import sample_atlas
+    from raytracer.render.cast import Hit
+    from raytracer.render.geometry import expand_geometry
+    from raytracer.render.shading import sample_atlas
 
     sb = SceneBuilder()
     mat = Material(kd=np.array([1, 1, 1, 1], np.float32))
@@ -81,7 +81,7 @@ def textured_cube():
 
 def test_textured_render_differs_from_flat(textured_cube):
     scene, cam = textured_cube
-    from raytracer_tpu.scene import RenderConfig, scene_render_flags
+    from raytracer.scene import RenderConfig, scene_render_flags
 
     cfg_base = RenderConfig(width=64, height=64, recurse_depth=0,
                             **scene_render_flags(scene))
@@ -98,14 +98,14 @@ def test_textured_render_pallas_matches_jnp(textured_cube):
     uv for the textured cube — the box fast path (fixed uv) must be disabled
     for it, or every face samples one texel (ADVICE r2 #1)."""
     scene, cam = textured_cube
-    from raytracer_tpu.scene import RenderConfig, scene_render_flags
+    from raytracer.scene import RenderConfig, scene_render_flags
 
     cfg = RenderConfig(width=64, height=64, recurse_depth=0,
                        texture_mapping=True, **scene_render_flags(scene))
     img_jnp = np.asarray(render_frame(scene, cam, cfg.replace(engine="jnp")))
     img_pal = np.asarray(
         render_frame(scene, cam, cfg.replace(engine="pallas",
-                                             pallas_kernel="scalar"))
+                                             interpret=True))
     )
     np.testing.assert_allclose(img_pal, img_jnp, rtol=1e-4, atol=1e-4)
 
@@ -114,8 +114,8 @@ def test_untextured_cube_keeps_box_fast_path():
     """texture_mapping=True must NOT disable the box path for meshes whose
     coords are degenerate (untextured) — only textured meshes pay the
     template scan."""
-    from raytracer_tpu.render.geometry import expand_geometry
-    from raytracer_tpu.render.pallas_engine import _II_IS_BOX, build_tables
+    from raytracer.render.geometry import expand_geometry
+    from raytracer.render.pallas_engine import _II_IS_BOX, build_tables
 
     sb = SceneBuilder()
     mat = Material(kd=np.array([1.0, 0.0, 0.0, 1.0], np.float32))

@@ -10,10 +10,10 @@ import pytest
 
 
 def test_train_checkpoint_roundtrip(tmp_path, capfd):
-    from raytracer_tpu import checkpoint, cli
+    from raytracer import checkpoint, cli
 
     ckpt = str(tmp_path / "ckpt.npz")
-    args = ["--config", "/root/reference/world1.json",
+    args = ["--config", "cubes1",
             "--width", "48", "--height", "32",
             "--reference-impl", "--no-bvh",
             "--train", "2", "--checkpoint", ckpt, "--lr", "0.05",
@@ -44,7 +44,7 @@ def test_train_checkpoint_roundtrip(tmp_path, capfd):
 
 
 def test_checkpoint_rejects_mismatched_structure(tmp_path):
-    from raytracer_tpu import checkpoint
+    from raytracer import checkpoint
 
     path = str(tmp_path / "c.npz")
     tree = {"a": np.zeros((2, 3)), "b": np.ones((4,))}
@@ -66,7 +66,7 @@ class TestElasticRecovery:
     to EXACTLY the state an uninterrupted run produces (training is pure, so
     recomputed steps are bit-identical)."""
 
-    WORLD = ["--config", "/root/reference/world1.json",
+    WORLD = ["--config", "cubes1",
              "--width", "48", "--height", "32",
              "--reference-impl", "--no-bvh",
              "--checkpoint-every", "1", "--lr", "0.05"]
@@ -79,7 +79,7 @@ class TestElasticRecovery:
             int(data["__step__"])
 
     def _run_clean(self, tmp_path, steps=4):
-        from raytracer_tpu import cli
+        from raytracer import cli
 
         ckpt = str(tmp_path / "clean.npz")
         assert cli.main(self.WORLD + ["--train-until", str(steps),
@@ -89,7 +89,7 @@ class TestElasticRecovery:
     def test_crash_recovery_matches_uninterrupted(self, tmp_path, capfd):
         import os
 
-        from raytracer_tpu import cli
+        from raytracer import cli
 
         want, want_step = self._run_clean(tmp_path)
         capfd.readouterr()
@@ -120,7 +120,7 @@ class TestElasticRecovery:
     def test_hang_detection_and_recovery(self, tmp_path, capfd):
         import os
 
-        from raytracer_tpu import cli
+        from raytracer import cli
 
         want, _ = self._run_clean(tmp_path)
         capfd.readouterr()
@@ -147,7 +147,7 @@ class TestElasticRecovery:
         spent, not spin: checkpoint storage pointed at a nonexistent
         directory makes every attempt crash at its first save (and leaves
         no durable progress to resume)."""
-        from raytracer_tpu import cli
+        from raytracer import cli
 
         ckpt = str(tmp_path / "no_dir" / "loop.npz")
         rc = cli.main(self.WORLD + ["--train-until", "3",

@@ -2,10 +2,10 @@
 
 Shards the frame's row axis over a mesh of the first n devices for each n in a
 doubling sweep and reports rays/s plus parallel efficiency vs n=1.  On real
-multi-chip hardware this measures ICI scaling; on a CPU host it runs on the
+multi-GPU hardware this measures NVLink scaling; on a CPU host it runs on the
 virtual device mesh (XLA_FLAGS=--xla_force_host_platform_device_count=N) and
 demonstrates the mechanism (CPU "efficiency" reflects host core contention,
-not ICI).
+not device links).
 
 Usage:  python tools/bench_scaling.py [--config PATH] [--width W] [--height H]
 """
@@ -23,7 +23,7 @@ sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", default="/root/reference/world16.json")
+    ap.add_argument("--config", default="cubes16")
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--repeats", type=int, default=3)
@@ -32,9 +32,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from raytracer_tpu import dist, generate
-    from raytracer_tpu.builder import scale_camera
-    from raytracer_tpu.scene import device_scene
+    from raytracer import dist, generate
+    from raytracer.builder import scale_camera
+    from raytracer.render.engine import default_engine
+    from raytracer.scene import device_scene
 
     world = generate(args.config)
     scene = device_scene(world.scene)
@@ -48,14 +49,13 @@ def main():
         sizes.append(n)
         n *= 2
 
-    on_accel = jax.default_backend() != "cpu"
     results = []
     base = None
     for n in sizes:
         h = (args.height + 8 * n - 1) // (8 * n) * (8 * n)
         cfg = world.config.replace(
             width=args.width, height=h,
-            engine="pallas" if on_accel else "jnp",
+            engine=default_engine(),
             ray_chunk=min(32768, args.width * h),
         )
         mesh = dist.make_mesh(devices[:n])
@@ -82,7 +82,7 @@ def main():
         "metric": "scaling", "config": args.config, "backend": backend,
         "note": ("virtual CPU device mesh: demonstrates the sharding "
                  "mechanism only — 'efficiency' here measures host-core "
-                 "contention, not ICI scaling" if backend == "cpu" else
+                 "contention, not device-link scaling" if backend == "cpu" else
                  "real accelerator mesh"),
         "results": results}))
 

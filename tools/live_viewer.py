@@ -13,12 +13,12 @@ Serves a live-updating frame stream with the reference's controls:
 * ``/stats``   — {"fps": ..., "frames": ...}.
 * ``/key?k=w`` / ``/mouse?dx=..&dy=..`` / ``/click?x=..&y=..`` — controls.
 
-Deliberately OUT of the core package: pods have no display; this is a laptop/
+Deliberately OUT of the core package: accelerator hosts have no display; this is a laptop/
 devbox convenience wrapping the same camera_motion helpers the CLI's
 ``--interactive`` stdin loop uses.
 
 Usage:
-  python tools/live_viewer.py -c /root/reference/world1.json --port 8787
+  python tools/live_viewer.py -c cubes1 --port 8787
   python tools/live_viewer.py -c ... --selftest   # headless smoke test
 """
 
@@ -36,7 +36,7 @@ sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(
 SAMPLE_PERIOD = 5  # frames per FPS sample (reference main.cc:21)
 
 PAGE = """<!doctype html>
-<html><head><title>raytracer-tpu live</title><style>
+<html><head><title>raytracer live</title><style>
 body { background:#111; color:#eee; font-family:monospace; margin:0 }
 #wrap { position:relative; display:inline-block }
 #fps { position:absolute; top:6px; left:8px; color:#0f0;
@@ -77,11 +77,11 @@ class Viewer:
         import jax
         import jax.numpy as jnp
 
-        from raytracer_tpu import generate
-        from raytracer_tpu.builder import scale_camera
-        from raytracer_tpu.render import render_frame
-        from raytracer_tpu.render.engine import frame_to_u8
-        from raytracer_tpu.scene import device_scene
+        from raytracer import generate
+        from raytracer.builder import scale_camera
+        from raytracer.render import render_frame
+        from raytracer.render.engine import default_engine, frame_to_u8
+        from raytracer.scene import device_scene
 
         self.world = generate(config)
         cfg = self.world.config
@@ -91,8 +91,7 @@ class Viewer:
             cfg = cfg.replace(width=width)
         if height:
             cfg = cfg.replace(height=height)
-        on_accel = jax.default_backend() != "cpu"
-        self.cfg = cfg.replace(engine="pallas" if on_accel else "jnp")
+        self.cfg = cfg.replace(engine=default_engine())
         self.scene = device_scene(self.world.scene)
         self.camera = jax.tree_util.tree_map(jnp.asarray, cam)
         self._render = jax.jit(render_frame, static_argnames=("cfg",))
@@ -107,7 +106,7 @@ class Viewer:
     def render_once(self):
         import numpy as np
 
-        from raytracer_tpu.pngio import encode_png
+        from raytracer.pngio import encode_png
 
         img = self._to_u8(self._render(self.scene, self.camera, self.cfg))
         png = encode_png(np.asarray(img)[..., :3], level=1)
@@ -132,21 +131,21 @@ class Viewer:
 
     # -- controls (reference: WASD translate, mouse motion rotates) ------
     def key(self, k: str):
-        from raytracer_tpu import camera_motion as cm
+        from raytracer import camera_motion as cm
 
         with self.lock:
             self.camera = cm.key_move(self.camera, k)
         self.dirty.set()
 
     def mouse(self, dx: float, dy: float):
-        from raytracer_tpu import camera_motion as cm
+        from raytracer import camera_motion as cm
 
         with self.lock:
             self.camera = cm.mouse_look(self.camera, dx, dy)
         self.dirty.set()
 
     def click(self, x: int, y: int):
-        from raytracer_tpu.debug import debug_cast
+        from raytracer.debug import debug_cast
 
         print(f"debug ray at ({x}, {y}):", flush=True)
         debug_cast(self.scene, self.camera, self.cfg, x, y)
@@ -243,7 +242,7 @@ def main():
         t.start()
         base = f"http://127.0.0.1:{args.port}"
         page = urllib.request.urlopen(base + "/").read()
-        assert b"raytracer-tpu live" in page
+        assert b"raytracer live" in page
         png = urllib.request.urlopen(base + "/frame.png").read()
         assert png[:8] == b"\x89PNG\r\n\x1a\n" and len(png) > 100, (
             png[:16], len(png))

@@ -1,7 +1,7 @@
 // Golden-image driver: renders a world config through the *reference's own CPU
 // renderer* (compiled from /root/reference with clean-room stubs) and dumps the
 // framebuffer as a binary PPM plus a wall-clock timing line.  This binary is the
-// ground truth for the TPU framework's image-parity tests and the machine-local
+// ground truth for the JAX framework's image-parity tests and the machine-local
 // reference baseline for BENCH comparisons.
 //
 // Usage: reforacle <config.json> <out.ppm> [--no-bvh] [--engine cpu|gpu]
@@ -11,7 +11,7 @@
 // --engine gpu runs the reference's CUDA stack-machine path serially: with the
 //   stub launch geometry (1 thread, grid-stride loops cover all work) and
 //   single-lane __ballot_sync, the *exact* device code paths execute on the
-//   host.  This is the semantics the TPU framework must match.
+//   host.  This is the semantics the JAX framework must match.
 #include <chrono>
 #include <cstdio>
 #include <cstring>
